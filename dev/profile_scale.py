@@ -14,7 +14,7 @@ from bench import make_synthetic  # noqa: E402
 
 from pangraph_tpu.align.params import BuildArgs  # noqa: E402
 from pangraph_tpu.build.build import build, verify_roundtrip  # noqa: E402
-from pangraph_tpu.ops.batch_align import TpuBatchAligner  # noqa: E402
+from pangraph_tpu.ops.batch_align import BatchAligner  # noqa: E402
 from pangraph_tpu.utils import trace  # noqa: E402
 
 
@@ -30,7 +30,7 @@ def _watcher(period: float = 60.0):
             _t.sleep(period)
             print("==== periodic dump ====", flush=True)
             print(trace.summary(), flush=True)
-            for kind, nj, cells, s, _bp in TpuBatchAligner.STATS[-8:]:
+            for kind, nj, cells, s, _bp in BatchAligner.STATS[-8:]:
                 print(f"  {kind:24s} n={nj:5d} cells={cells / 1e6:10.1f}M t={s:7.3f}s", flush=True)
 
     threading.Thread(target=run, daemon=True).start()
@@ -42,14 +42,14 @@ def main():
     L = int(os.environ.get("PROF_L", 2_500_000))
     scale = make_synthetic(n_genomes=n, length=L, seed=7, sub_rate=0.005)
     args = BuildArgs(circular=True, jobs=int(os.environ.get("PROF_JOBS", 2)))
-    aligner = TpuBatchAligner(
+    aligner = BatchAligner(
         args.banded_params, args.extra_band_width, args.max_alignment_attempts
     )
     t = time.time()
     g = build(scale, args, aligner=aligner)
     print(f"warmup_build_s={time.time() - t:.2f} blocks={len(g.blocks)}", flush=True)
     trace.reset()
-    TpuBatchAligner.STATS.clear()
+    BatchAligner.STATS.clear()
     t = time.time()
     g = build(scale, args, aligner=aligner)
     dt = time.time() - t
@@ -61,7 +61,7 @@ def main():
     print(trace.summary())
     print("--- align rounds (kind, n_jobs, cells, seconds) ---")
     tot = {}
-    for kind, nj, cells, s, bp in TpuBatchAligner.STATS:
+    for kind, nj, cells, s, bp in BatchAligner.STATS:
         base = kind.split("[")[0]
         a = tot.setdefault(base, [0, 0, 0.0, 0])
         a[0] += nj
@@ -76,10 +76,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    # a stalled (watchdogged) probe thread makes C++ teardown abort after
-    # all output; skip teardown so the exit code reflects the run (bench.py
-    # does the same)
-    if TpuBatchAligner.DEVICE_EVER_STALLED:
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(0)

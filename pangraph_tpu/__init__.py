@@ -1,42 +1,45 @@
-"""pangraph_tpu — a TPU-native pangenome-graph framework.
+"""pangraph_tpu — a pangenome-graph framework in JAX.
 
 A from-scratch rebuild of the capabilities of neherlab/pangraph (v1.3.0, Rust + C
-minimap2) designed for JAX/XLA/Pallas on TPU:
+minimap2):
 
 - the graph data model (blocks / nodes / paths with per-genome edit sets) lives on
   host as compact numpy-backed structures (`pangraph_tpu.graph`),
-- the three compute kernels — minimizer sketching, anchor chaining and banded
-  affine-gap extension — are batched array programs (`pangraph_tpu.align`,
-  `pangraph_tpu.ops`) with Pallas TPU kernels for the hot inner loops,
+- sketching, anchor chaining and banded affine-gap extension run in native
+  C++ on the host (`pangraph_tpu.native`, `pangraph_tpu.align`); the banded DP
+  also has a device kernel (`pangraph_tpu.ops`: CUDA through the XLA FFI on the
+  GPU, with a plain-lax specification beside it),
 - graph construction (guide tree, pairwise merge, reweave, reconsensus) is the
   host-side orchestration in `pangraph_tpu.build`, batching all per-node
   re-alignments of a merge step into single device calls,
-- multi-chip scaling goes through `jax.sharding.Mesh` (`pangraph_tpu.parallel`).
+- several GPUs shard those batches through `jax.sharding.Mesh`
+  (`pangraph_tpu.parallel`).
 
-Reference behavior is documented against /root/reference file:line in docstrings.
+Reference behavior is documented against the upstream's file:line in docstrings.
 """
 
 __version__ = "0.1.0"
 
+import os as _os
+
+# the checkout root: a fixed compile-cache path (the path is part of the key)
+_CHECKOUT = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+
+
+def jax_cache_dir() -> str:
+    """Where XLA's persistent compilation cache lives: JAX_COMPILATION_CACHE_DIR
+    when set (JAX reads it itself), `<checkout>/.jax_cache` otherwise."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(_CHECKOUT, ".jax_cache")
+
 
 def _setup_jax_compilation_cache():
-    """Persistent XLA compilation cache: the bucketed kernel tiers compile once
-    per (R_cap, B, batch) shape; caching across processes turns ~40 s TPU
-    compiles into millisecond disk hits on every later run."""
-    import os
+    """Persistent XLA compilation cache: each (batch, R_cap, B, K) shape of
+    the device round compiles once per machine."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return  # JAX follows the variable; set nothing in code
+    import jax
 
-    try:
-        import jax
-
-        cache_dir = os.environ.get(
-            "PANGRAPH_TPU_JAX_CACHE", os.path.expanduser("~/.cache/pangraph_tpu/jax")
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+    jax.config.update("jax_compilation_cache_dir", jax_cache_dir())
 
 
 _setup_jax_compilation_cache()

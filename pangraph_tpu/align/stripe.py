@@ -19,7 +19,7 @@ The row recurrence is reformulated so every row is a vectorized update: with
 gap-extend == 0 the in-row (ref-gap) dependency collapses to a running prefix
 maximum, G[j] = max(G[j-1], H[j-1] - open)  ==  cummax(NQ - open), which is an
 associative scan. The same formulation drives the numpy implementation here and
-the batched JAX/Pallas kernel in `pangraph_tpu.ops.stripe_v2`.
+the batched device contract in `pangraph_tpu.ops.stripe_dp`.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Native host runtime: C++ kernels compiled at first use, bound via ctypes.
 
-Holds the host-side hot loops that don't belong on the TPU: anchor chaining
+Holds the host-side hot loops: anchor chaining
 DP (sequential scan; replaces the reference's lchain.c) and the banded
 traceback fallback. Build: g++ -O3 -shared; cached in this directory keyed by
 a source hash. All callers fall back to numpy implementations when the
@@ -73,6 +73,7 @@ def _bind(lib):
     lib.sketch_native.restype = ctypes.c_int64
     lib.index_build_native.restype = ctypes.c_int64
     lib.anchors_all_native.restype = ctypes.c_int64
+    lib.stripe_simd_bits.restype = ctypes.c_int
     return lib
 
 

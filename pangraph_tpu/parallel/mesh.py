@@ -1,11 +1,10 @@
 """Multi-chip execution: shard alignment batches over a device mesh.
 
 The reference's parallelism is a rayon thread pool over promises/nodes
-(SURVEY.md §2.4). The TPU mapping: the job axis of one merge round's
-re-alignment batch is sharded data-parallel across chips with
-jax.sharding.Mesh + NamedSharding; XLA partitions the vmapped stripe kernel
-with no collectives in the hot loop (embarrassingly parallel over jobs), so
-scaling rides ICI only for the result gather.
+(SURVEY.md §2.4). Here the job axis of one merge round's re-alignment batch
+is sharded data-parallel across the GPUs of one host with jax.sharding.Mesh
+and shard_map: each device runs the stripe kernel on its shard, with no
+collectives in the hot loop (embarrassingly parallel over jobs).
 """
 from __future__ import annotations
 
@@ -31,9 +30,9 @@ def shard_jobs(mesh: Mesh, *arrays, axis: str = "jobs"):
 
 
 def make_mesh_aligner(n_devices: int = None, params=None, extra_band_width: int = 5, max_attempts: int = 4):
-    """A TpuBatchAligner whose bucket batches are sharded data-parallel over
-    a 'jobs' device mesh (shard_map; one Pallas kernel instance per chip)."""
-    from pangraph_tpu.ops.batch_align import TpuBatchAligner
+    """A BatchAligner whose bucket batches are sharded data-parallel over
+    a 'jobs' device mesh (shard_map; one kernel instance per device)."""
+    from pangraph_tpu.ops.batch_align import BatchAligner
 
     mesh = make_mesh(n_devices)
-    return TpuBatchAligner(params, extra_band_width, max_attempts, mesh=mesh)
+    return BatchAligner(params, extra_band_width, max_attempts, mesh=mesh)

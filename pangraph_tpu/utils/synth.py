@@ -139,3 +139,41 @@ def make_accessory_pangenome(
         g = _mutate(np.concatenate(pieces), rng, sub_rate)
         records.append(FastaRecord(seq_name=f"acc_{gi}", desc="", seq=g, index=gi))
     return records
+
+
+def make_align_batch(rng, m: int, L: int, R_cap: int, W: int, sub_rate: float = 0.01, n_indels: int = 4):
+    """A batch of banded-DP problems for the stripe contract
+    (ops/stripe_dp.py): m pairs of ~L bp with ~sub_rate substitutions and
+    n_indels short indels each, every pair inside a band of half-width W.
+    Returns (pairs, arrays): pairs = [(ref, qry, ms, W)] as uint8 ASCII,
+    arrays = (ref, qry, rlen, qlen, ms, W) padded IUPAC masks for the call."""
+    from pangraph_tpu.graph.seq import IUPAC_MASK
+    from pangraph_tpu.ops.stripe_dp import fits_band
+
+    pairs = []
+    while len(pairs) < m:
+        ref = ACGT[rng.integers(0, 4, L)]
+        q = ref.copy()
+        idx = rng.choice(L, int(L * sub_rate), replace=False)
+        q[idx] = ACGT[rng.integers(0, 4, len(idx))]
+        q = list(q)
+        for _ in range(n_indels):
+            p = int(rng.integers(1, len(q) - 1))
+            n = int(rng.integers(1, 9))
+            if rng.random() < 0.5:
+                del q[p : p + n]
+            else:
+                q[p:p] = list(ACGT[rng.integers(0, 4, n)])
+        qry = np.array(q, np.uint8)
+        ms = int(rng.integers(-min(W, 3), min(W, 3) + 1))
+        if fits_band(len(ref), len(qry), ms, W) and len(qry) < R_cap:
+            pairs.append((ref, qry, ms, W))
+    arrays = (
+        np.zeros((m, R_cap), np.uint8), np.zeros((m, R_cap), np.uint8),
+        np.zeros(m, np.int32), np.zeros(m, np.int32), np.zeros(m, np.int32), np.zeros(m, np.int32),
+    )
+    for s, (ref, qry, ms, w) in enumerate(pairs):
+        arrays[0][s, : len(ref)] = IUPAC_MASK[ref]
+        arrays[1][s, : len(qry)] = IUPAC_MASK[qry]
+        arrays[2][s], arrays[3][s], arrays[4][s], arrays[5][s] = len(ref), len(qry), ms, w
+    return pairs, arrays

@@ -43,7 +43,7 @@ def _run_worker(fa, out, ckpt_dir, coordinate=True):
     env["PANGRAPH_TPU_INIT_TIMEOUT"] = "3"
     args = [
         sys.executable, "-m", "pangraph_tpu.cli", "build", str(fa),
-        "-o", str(out), "--checkpoint-dir", str(ckpt_dir), "--no-tpu",
+        "-o", str(out), "--checkpoint-dir", str(ckpt_dir), "--no-device",
         "--no-progress-bar", "-j", "2",
     ]
     if coordinate:
@@ -105,7 +105,7 @@ def _run_worker_tcp(fa, out, url):
     env["PANGRAPH_TPU_INIT_TIMEOUT"] = "3"
     args = [
         sys.executable, "-m", "pangraph_tpu.cli", "build", str(fa),
-        "-o", str(out), "--no-tpu", "--no-progress-bar", "-j", "2",
+        "-o", str(out), "--no-device", "--no-progress-bar", "-j", "2",
         "--coordinate", url,
     ]
     return subprocess.Popen(args, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)

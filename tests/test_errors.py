@@ -50,7 +50,7 @@ def test_read_fasta_bad_alphabet(tmp_path):
 
 def test_cli_build_no_records_clean_error(tmp_path, capsys):
     p = _write(tmp_path, "empty.fa", "")
-    rc = main(["build", str(p), "-o", str(tmp_path / "out.json"), "--no-tpu", "--no-progress-bar"])
+    rc = main(["build", str(p), "-o", str(tmp_path / "out.json"), "--no-device", "--no-progress-bar"])
     assert rc == 1
     err = capsys.readouterr().err
     assert err.startswith("error:") and "no FASTA records" in err
@@ -61,7 +61,7 @@ def test_cli_build_lfs_stub_clean_error(tmp_path, capsys):
         tmp_path, "stub.fa",
         "version https://git-lfs.github.com/spec/v1\noid sha256:abcd\nsize 7\n",
     )
-    rc = main(["build", str(p), "-o", str(tmp_path / "out.json"), "--no-tpu", "--no-progress-bar"])
+    rc = main(["build", str(p), "-o", str(tmp_path / "out.json"), "--no-device", "--no-progress-bar"])
     assert rc == 1
     assert "git-LFS pointer stub" in capsys.readouterr().err
 
@@ -71,7 +71,7 @@ def test_cli_build_guide_tree_mismatch_clean_error(tmp_path, capsys):
     nwk = _write(tmp_path, "t.nwk", "(a,c);")
     rc = main([
         "build", fa, "--guide-tree", nwk, "-o", str(tmp_path / "o.json"),
-        "--no-tpu", "--no-progress-bar",
+        "--no-device", "--no-progress-bar",
     ])
     assert rc == 1
     assert capsys.readouterr().err.startswith("error:")
@@ -81,7 +81,7 @@ def test_cli_build_single_record(tmp_path):
     """One input genome builds a singleton graph (no NJ crash)."""
     fa = _write(tmp_path, "one.fa", ">solo\n" + "ACGTACGTAA" * 30 + "\n")
     out = tmp_path / "o.json"
-    rc = main(["build", fa, "-o", str(out), "--no-tpu", "--no-progress-bar"])
+    rc = main(["build", fa, "-o", str(out), "--no-device", "--no-progress-bar"])
     assert rc == 0
     from pangraph_tpu.graph.graph import Pangraph
 

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from pangraph_tpu.align.params import BandedAlignParams, BandParameters
-from pangraph_tpu.ops.batch_align import AlignJob, TpuBatchAligner
+from pangraph_tpu.ops.batch_align import AlignJob, BatchAligner
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -30,8 +30,8 @@ def test_mesh_sharded_align_matches_single_device():
 
     rng = np.random.default_rng(5)
     jobs = _jobs(rng, 11)
-    single = TpuBatchAligner(BandedAlignParams(), 5, 4)
-    sharded = TpuBatchAligner(BandedAlignParams(), 5, 4, mesh=make_mesh(8))
+    single = BatchAligner(BandedAlignParams(), 5, 4)
+    sharded = BatchAligner(BandedAlignParams(), 5, 4, mesh=make_mesh(8))
     # force the device kernel: adaptive routing would otherwise send these
     # small jobs to the native host aligner on both sides, and the sharded
     # shard_map path would never execute

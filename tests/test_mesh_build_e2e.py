@@ -12,7 +12,7 @@ import pytest
 from pangraph_tpu.align.params import AlignmentArgs, BuildArgs
 from pangraph_tpu.build.build import build
 from pangraph_tpu.io.fasta import FastaRecord
-from pangraph_tpu.ops.batch_align import TpuBatchAligner
+from pangraph_tpu.ops.batch_align import BatchAligner
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -47,7 +47,7 @@ def _graph_json(graph) -> str:
 
 def _build(recs, mesh=None):
     args = BuildArgs(circular=False, verify=True, aln_args=AlignmentArgs())
-    aligner = TpuBatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, mesh=mesh)
+    aligner = BatchAligner(args.banded_params, args.extra_band_width, args.max_alignment_attempts, mesh=mesh)
     # force the device kernel: adaptive routing would otherwise send every
     # job to the native host aligner on the CPU test backend
     aligner.NATIVE_CELL_BUDGET = 0

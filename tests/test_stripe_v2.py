@@ -1,16 +1,30 @@
-"""Parity tests for the v2 stripe kernel (ops/stripe_v2.py): the static-op
-window-coordinate DP + run-jump traceback must produce Edits exactly equal to
-the host banded aligner (align/map_variations.py), which itself is pinned
-against the reference fixtures (align_with_nextclade.rs:90-141)."""
+"""Parity tests for the stripe DP contract (ops/stripe_dp.py). The plain-lax
+spec must produce, problem for problem, the host aligner's edits and
+boundary flags (native/stripe.cpp, align/map_variations.py), which are
+themselves pinned against the reference fixtures
+(align_with_nextclade.rs:90-141). The CUDA kernel is held to the spec bit
+for bit on the card (test_cuda_matches_spec, chip_smoke.py)."""
 import numpy as np
 import pytest
 
 from pangraph_tpu.align.map_variations import map_variations
 from pangraph_tpu.align.params import BandedAlignParams, BandParameters
-from pangraph_tpu.graph.seq import as_seq
-from pangraph_tpu.ops.stripe_v2 import G, edit_from_events, stripe_align_v2
+from pangraph_tpu.graph.seq import IUPAC_MASK, as_seq
+from pangraph_tpu.native import stripe_align_batch_native
+from pangraph_tpu.ops.batch_align import _edit_from_rle_hostmatch
+from pangraph_tpu.ops.stripe_dp import (
+    META,
+    OP_D,
+    decode_packed,
+    edit_from_events,
+    fits_band,
+    lanes_for,
+    stripe_align_spec,
+)
+from pangraph_tpu.utils.synth import make_align_batch
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
+KINDS = ["identical", "subs", "mixed", "heavy"]
 
 
 def mutate(ref, n_sub, n_ins, n_del, rng):
@@ -29,33 +43,56 @@ def mutate(ref, n_sub, n_ins, n_del, rng):
     return q
 
 
-def align_v2(ref, qry, ms, B, R_cap):
-    m_pad = G
-    rlen = np.zeros(m_pad, np.int32)
-    qlen = np.zeros(m_pad, np.int32)
-    msv = np.zeros(m_pad, np.int32)
-    Wv = np.full(m_pad, (B - 2) // 2, np.int32)
-    ref_seq = np.zeros((m_pad, R_cap), np.uint8)
-    qry_seq = np.zeros((m_pad, R_cap + B), np.uint8)
-    ref_seq[0, : len(ref)] = ref
-    qry_seq[0, : len(qry)] = qry
-    rlen[0], qlen[0], msv[0] = len(ref), len(qry), ms
-    gmax = rlen.reshape(-1, G).max(axis=1).astype(np.int32)
-    out = stripe_align_v2(ref_seq, qry_seq, rlen, qlen, msv, Wv, gmax, R_cap, B, 512)
-    rows = np.asarray(out["rows"])[0]
-    words = np.asarray(out["words"])[0]
-    ne = int(np.asarray(out["n_events"])[0])
-    meta = np.asarray(out["meta"])[0]
-    edit, ok = edit_from_events(rows, words, ne, meta, ref, qry)
-    assert ok, f"walk dead/overflow: meta={meta} ne={ne}"
-    return edit
+def run_spec(pairs, R_cap, B, K=256):
+    """Packed spec output for [(ref, qry, ms, W)] (one padding problem added)."""
+    m = len(pairs) + 1
+    ref = np.zeros((m, R_cap), np.uint8)
+    qry = np.zeros((m, R_cap), np.uint8)
+    ints = np.zeros((4, m), np.int32)
+    for s, (r, q, ms, W) in enumerate(pairs):
+        ref[s, : len(r)] = IUPAC_MASK[r]
+        qry[s, : len(q)] = IUPAC_MASK[q]
+        ints[:, s] = (len(r), len(q), ms, W)
+    return np.asarray(stripe_align_spec(ref, qry, *ints, B=B, K=K))
 
 
-@pytest.mark.parametrize("kind", ["identical", "subs", "mixed", "heavy"])
-def test_v2_matches_host_aligner(kind):
-    rng = np.random.default_rng(hash(kind) % 2**32)
-    B, R_cap = 128, 512
-    for trial in range(3):
+def native_results(pairs):
+    """(edit, boundary) per pair from the host C++ aligner at the same band."""
+    out = stripe_align_batch_native(
+        [p[0] for p in pairs], [p[1] for p in pairs],
+        np.array([p[2] for p in pairs], np.int64), np.array([p[3] for p in pairs], np.int64),
+        BandedAlignParams(), IUPAC_MASK, ops_cap=4096, subs_cap=8192,
+    )
+    res = []
+    for s, (_r, q, _ms, _W) in enumerate(pairs):
+        assert int(out["status"][s]) == 0
+        ops, subs = out["ops"][s], out["subs"][s]
+        e = _edit_from_rle_hostmatch(ops, len(ops), subs, len(subs), int(out["lead_ins"][s]), q)
+        res.append((e, bool(out["boundary"][s])))
+    return res
+
+
+def assert_matches_host(pairs, R_cap, B, K=256):
+    buf = run_spec(pairs, R_cap, B, K)
+    for s, ((r, q, ms, W), (want, hb)) in enumerate(zip(pairs, native_results(pairs))):
+        edit, ok, bnd = decode_packed(buf[s], K, r, q)
+        assert ok, f"problem {s}: walk dead/overflow, meta={buf[s, :META]}"
+        assert np.array_equal(edit.apply(r), q)
+        assert edit == want, f"problem {s}: edits differ from the host aligner"
+        assert bnd == hb, f"problem {s}: boundary flag differs"
+    # the padding problem is inert and every unused event slot is zero
+    assert not buf[-1].any()
+    for s in range(len(pairs)):
+        n = int(buf[s, 4])
+        assert not buf[s, META + n : META + K].any() and not buf[s, META + K + n :].any()
+
+
+@pytest.mark.parametrize("B", [128, 256, 512])
+@pytest.mark.parametrize("kind", KINDS)
+def test_v2_matches_host_aligner(kind, B):
+    rng = np.random.default_rng([KINDS.index(kind), B])
+    pairs = []
+    for _ in range(4):
         n = int(rng.integers(150, 480))
         ref = ACGT[rng.integers(0, 4, n)]
         if kind == "identical":
@@ -66,75 +103,103 @@ def test_v2_matches_host_aligner(kind):
             qry = mutate(ref, 5, 3, 3, rng)
         else:
             qry = mutate(ref, 15, 5, 5, rng)
-        edit = align_v2(ref, qry, 0, B, R_cap)
-        assert np.array_equal(edit.apply(ref), qry)
-        host = map_variations(ref, qry, BandParameters(0, (B - 2) // 2), BandedAlignParams(), 0)
-        assert edit == host
+        W = int(rng.integers(B // 4, (B - 1) // 2 + 1))
+        pairs.append((ref, qry, 0, W))
+    assert_matches_host(pairs, 512, B)
+    # and with the numpy reference aligner
+    for ref, qry, ms, W in pairs:
+        buf = run_spec([(ref, qry, ms, W)], 512, B)
+        edit, ok, _ = decode_packed(buf[0], 256, ref, qry)
+        assert edit == map_variations(ref, qry, BandParameters(ms, W), BandedAlignParams(), 0)
 
 
 def test_v2_terminal_gaps_and_shift():
     rng = np.random.default_rng(7)
-    B, R_cap = 128, 512
     ref = ACGT[rng.integers(0, 4, 300)]
-    for ref2, qry in [(ref, ref[20:]), (ref, ref[:-25]), (ref[30:], ref), (ref[:-30], ref)]:
-        edit = align_v2(as_seq(ref2), as_seq(qry), 0, B, R_cap)
-        assert np.array_equal(edit.apply(as_seq(ref2)), as_seq(qry))
+    pairs = [(as_seq(r), as_seq(q), 0, 40) for r, q in [(ref, ref[20:]), (ref, ref[:-25]), (ref[30:], ref), (ref[:-30], ref)]]
     qry = mutate(ref, 8, 2, 2, rng)
-    for ms in (17, -13):
-        edit = align_v2(ref, qry, ms, B, R_cap)
-        host = map_variations(ref, qry, BandParameters(ms, (B - 2) // 2), BandedAlignParams(), 0)
-        assert edit == host
+    pairs += [(ref, qry, ms, 40) for ms in (17, -13)]
+    assert_matches_host(pairs, 512, 128)
 
 
 def test_v2_multichunk():
     rng = np.random.default_rng(11)
-    B = 128
     ref = ACGT[rng.integers(0, 4, 900)]
     qry = mutate(ref, 20, 4, 4, rng)
-    edit = align_v2(ref, qry, 0, B, 1024)
-    host = map_variations(ref, qry, BandParameters(0, (B - 2) // 2), BandedAlignParams(), 0)
-    assert edit == host
+    assert_matches_host([(ref, qry, 0, 63)], 1024, 128)
 
 
 def test_v2_non_power_of_two_tier_10240():
-    """The 10240 R-cap tier (5 * 2048 — not a power of two) must satisfy the
-    walk kernel's chunk-divisor selection (stripe_v2.walk_v2 picks the
-    largest power-of-two chunk that divides R_cap) and stay edit-exact."""
+    """The 10240 R-cap tier (5 * 2048) holds ~9 kb pin-split pieces."""
     rng = np.random.default_rng(23)
-    B = 128
     ref = ACGT[rng.integers(0, 4, 9000)]
     qry = mutate(ref, 90, 6, 6, rng)
-    edit = align_v2(ref, qry, 0, B, 10240)
-    host = map_variations(ref, qry, BandParameters(0, (B - 2) // 2), BandedAlignParams(), 0)
-    assert edit == host
+    assert_matches_host([(ref, qry, 0, 63)], 10240, 128)
 
 
-def test_v2_packed_inputs_match_raw():
-    """stripe_align_v2_packed (nibble-packed H2D inputs) must be
-    output-identical to the raw-byte wrapper."""
-    import numpy as np
+@pytest.mark.parametrize("W", [1, 2, 5, 12])
+def test_v2_narrow_bands_hit_boundary_like_host(W):
+    """Narrow bands against indels: boundary flags and band-capped edits
+    must be the host aligner's."""
+    rng = np.random.default_rng(W)
+    pairs = []
+    while len(pairs) < 6:
+        ref = ACGT[rng.integers(0, 4, 300)]
+        qry = mutate(ref, 6, 2, 2, rng)
+        ms = int(rng.integers(-W, W + 1))
+        if fits_band(len(ref), len(qry), ms, W):
+            pairs.append((ref, qry, ms, W))
+    assert_matches_host(pairs, 512, 128)
 
-    from pangraph_tpu.graph.seq import IUPAC_MASK
-    from pangraph_tpu.ops.stripe_v2 import pack_nibbles_host, stripe_align_v2, stripe_align_v2_packed
 
-    rng = np.random.default_rng(29)
-    m, B, R_cap, L = 8, 128, 512, 400
-    ref_seq = np.zeros((m, R_cap), np.uint8)
-    qry_seq = np.zeros((m, R_cap + B), np.uint8)
-    for s in range(m):
-        r = ACGT[rng.integers(0, 4, L)]
-        q = mutate(r, 8, 2, 2, rng)
-        ref_seq[s, : len(r)] = r
-        qry_seq[s, : len(q)] = q
-    rlen = np.full(m, L, np.int32)
-    qlen = np.array([np.count_nonzero(qry_seq[s]) for s in range(m)], np.int32)
-    ms = np.zeros(m, np.int32)
-    W = np.full(m, (B - 2) // 2, np.int32)
-    gmax = rlen.reshape(-1, 8).max(axis=1).astype(np.int32)
-    raw = stripe_align_v2(ref_seq, qry_seq, rlen, qlen, ms, W, gmax, R_cap, B, 256, 8)
-    packed = stripe_align_v2_packed(
-        pack_nibbles_host(IUPAC_MASK[ref_seq]), pack_nibbles_host(IUPAC_MASK[qry_seq]),
-        rlen, qlen, ms, W, gmax, R_cap, B, 256, 8,
-    )
-    for k in ("rows", "words", "n_events", "meta"):
-        np.testing.assert_array_equal(np.asarray(raw[k]), np.asarray(packed[k]))
+def test_v2_iupac_and_n():
+    ref = as_seq("ACGTACGTACGTACNTACGTACGTAC")
+    qry = as_seq("ACGTNCGTACRTACGTACGTWCGTAC")
+    assert_matches_host([(ref, qry, 0, 5)], 512, 128)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_v2_batch_generator_pairs_match_host(seed):
+    pairs, _arrays = make_align_batch(np.random.default_rng(seed), 6, 400, 512, 20)
+    assert_matches_host(pairs, 512, 128)
+
+
+@pytest.mark.parametrize(
+    "rlen,qlen,ms,W,fits",
+    [
+        (100, 100, 0, 5, True),
+        (100, 105, 0, 5, True),
+        (100, 106, 0, 5, False),  # end corner outside the band
+        (100, 100, 6, 5, False),  # origin outside the band
+        (100, 95, -5, 5, False),
+        (100, 110, -5, 5, True),
+    ],
+)
+def test_fits_band(rlen, qlen, ms, W, fits):
+    assert fits_band(rlen, qlen, ms, W) is fits
+
+
+@pytest.mark.parametrize("W,B", [(0, 128), (63, 128), (64, 256), (127, 256), (500, 1024), (1023, 2048)])
+def test_lanes_for_tiers(W, B):
+    assert lanes_for(W) == B
+
+
+def test_lanes_for_rejects_wider_bands():
+    with pytest.raises(ValueError):
+        lanes_for(1024)
+
+
+def test_decode_merges_deletions_split_by_insertions():
+    """A deletion run, an insertion, a deletion run (two OP_D events) is one
+    Del, as the host aligner's insertion-strip semantics make it."""
+    ref = as_seq("AAAACCCCGGGGTTTT")
+    qry = as_seq("AAAAXGGGGTTTT")
+    # walk order (descending row): D at row 6 (len 2), D at row 4 (len 2,
+    # then one inserted char)
+    rows = np.array([6, 4], np.int32)
+    words = np.array([OP_D | (2 << 17), OP_D | (1 << 2) | (2 << 17)], np.int32)
+    meta = np.zeros(4, np.int32)
+    edit, ok = edit_from_events(rows, words, 2, meta, ref, qry)
+    assert ok
+    assert [(d.pos, d.len) for d in edit.dels] == [(4, 4)]
+    assert np.array_equal(edit.apply(ref), qry)

@@ -127,7 +127,7 @@ def test_anchor_split_stitched_alignment_applies_exactly():
     relies on — and match the whole-span alignment's cell-count reduction."""
     from pangraph_tpu.align import mapper as mp
     from pangraph_tpu.align.params import BandedAlignParams
-    from pangraph_tpu.ops.batch_align import TpuBatchAligner
+    from pangraph_tpu.ops.batch_align import BatchAligner
 
     rng = np.random.default_rng(9)
     L = 300_000
@@ -165,7 +165,7 @@ def test_anchor_split_stitched_alignment_applies_exactly():
     span_cells = len(job.ref_seg) * (2 * job.band_width + 2)
     piece_cells = sum((r1 - r0) * (2 * bw + 2) for r0, r1, q0, q1, ms, bw in job.segments)
     assert piece_cells < span_cells
-    al = TpuBatchAligner(BandedAlignParams())
+    al = BatchAligner(BandedAlignParams())
     (edit,) = mp._align_chain_jobs([job], BandedAlignParams(), al)
     assert np.array_equal(edit.apply(job.ref_seg), job.qry_seg)
 
@@ -177,7 +177,7 @@ def test_pin_split_realign_applies_exactly():
     from pangraph_tpu.align.jobsplit import split_by_prior
     from pangraph_tpu.align.params import BandedAlignParams, BandParameters
     from pangraph_tpu.graph.edits import Del as D, Edit as E, Ins as I
-    from pangraph_tpu.ops.batch_align import AlignJob, TpuBatchAligner
+    from pangraph_tpu.ops.batch_align import AlignJob, BatchAligner
 
     rng = np.random.default_rng(17)
     L = 120_000
@@ -204,7 +204,7 @@ def test_pin_split_realign_applies_exactly():
         assert a[1] == b[0] and a[3] == b[2]
     # local bands are small (each piece holds at most a couple of indels)
     assert max(bw for *_, bw in segs) < 50
-    al = TpuBatchAligner(BandedAlignParams())
+    al = BatchAligner(BandedAlignParams())
     (edit,) = al.align_many([AlignJob(ref, qry, BandParameters(0, 40), segments=segs)])
     assert np.array_equal(edit.apply(ref), qry)
     # and matches the unsplit alignment byte-for-byte on reconstruction
